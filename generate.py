@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Amalgamation codegen: produce dist/glu_tpu_single.py.
 
-TPU-native analog of the reference's generate.py (reference generate.py:7-29),
+Python analog of the reference's generate.py (reference generate.py:7-29),
 which inlines local #includes to ship copy-paste single headers in dist/
 (reference README.md:19-30). Here the whole glu_tpu package is flattened
 into one importable Python file: modules are concatenated in dependency
@@ -25,22 +25,16 @@ DIST = ROOT / "dist"
 # dependency order (later modules may lazily reference earlier ones)
 MODULES = [
     "utils/errors.py",
-    "utils/log.py",
     "utils/math.py",
     "utils/dtypes.py",
     "utils/timing.py",
     "utils/buffers.py",
     "utils/debug.py",
-    "ops/backend.py",
     "ops/_segments.py",
     "ops/reference.py",
     "ops/reduce.py",
     "ops/scan.py",
     "ops/radix_sort.py",
-    "ops/_pallas_common.py",
-    "ops/_pallas_reduce.py",
-    "ops/_pallas_scan.py",
-    "ops/_pallas_sort.py",
     "parallel/dist_sort.py",
     "parallel/dist_primitives.py",
 ]

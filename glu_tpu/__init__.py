@@ -1,15 +1,16 @@
-"""glu_tpu — TPU-native parallel primitives: reduce, Blelloch scan, stable LSD radix sort.
+"""glu_tpu — data-parallel primitives in JAX: reduce, Blelloch scan, stable LSD radix sort.
 
-A brand-new JAX/XLA/Pallas framework with the capabilities of the reference
+A JAX/XLA library with the capabilities of the reference
 library loryruta/gl-radix-sort ("GLU", /root/reference): parallel Reduce
 (sum/mul/min/max over GLU's 12 scalar/vector element types,
 reference glu/data_types.hpp:8-22), Blelloch exclusive prefix scan with
 batched adjacent partitions (reference glu/BlellochScan.hpp:80-191), and a
 stable LSD radix sort over u32 key-value pairs, 4-bit digits x 8 passes with
 partial-pass debugging (reference glu/RadixSort.hpp:186-354) — re-designed
-TPU-first (VMEM-tiled Pallas kernels, XLA program boundaries instead of
-glMemoryBarrier, donated HBM double buffers instead of SSBO ping-pong) and
-extended with a multi-host distributed sort over a `jax.sharding.Mesh`.
+as plain jnp/lax programs (XLA program boundaries instead of
+glMemoryBarrier, donated device buffers instead of SSBO ping-pong) and
+extended with a distributed sort, scan and reduce over a
+`jax.sharding.Mesh`.
 
 The library does not own the JAX runtime or mesh — like the reference does
 not own a GL context (reference test/main.cpp:64-89), the caller brings

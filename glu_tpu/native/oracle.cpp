@@ -4,7 +4,7 @@
 // in glu/*.hpp; its test oracles are STL algorithms: std::accumulate,
 // std::exclusive_scan, std::stable_sort — reference test/reduce_tests.cpp,
 // test/blelloch_scan_tests.cpp, test/radix_sort_tests.cpp). This is the
-// TPU framework's native analog: exact reference implementations of every
+// JAX library's native analog: exact reference implementations of every
 // operator contract, fast enough to verify multi-hundred-million-element
 // device results (a stable LSD radix sort here runs ~20x faster than
 // numpy's stable argsort at 268M pairs).

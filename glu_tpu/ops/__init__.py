@@ -7,8 +7,8 @@ Each operator has:
     constructor-specialized operator objects (specialization keyed by
     dtype/op, with jit caching playing the role of the reference's
     shader-#define codegen, reference glu/Reduce.hpp:68-99);
-  - two backends: "pallas" (TPU kernels, the performance path) and "xla"
-    (pure jnp composition, the portable/correctness path).
+  - one implementation: plain jnp/lax code that XLA compiles for the
+    device.
 """
 
 from .reduce import Reduce, ReduceOperator, reduce, segmented_reduce

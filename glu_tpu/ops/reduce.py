@@ -1,19 +1,17 @@
 """Parallel Reduce (sum / mul / min / max).
 
-TPU-native re-design of reference glu/Reduce.hpp. The reference runs a
-radix-32 subgroup tree: ceil(log32 N) dispatches, each lane reducing 32
-strided elements in place (Reduce.hpp:121-134, kernel at :24-37). On TPU the
-whole tree collapses into ONE Pallas kernel: a sequential grid over VMEM
-tiles accumulating into an (8, 128) VPU-shaped scratch register block, with a
-final cross-lane reduction on the last grid step — no host round trips, no
-destructive in-place partials.
+A JAX re-design of reference glu/Reduce.hpp. The reference runs a radix-32
+subgroup tree: ceil(log32 N) dispatches, each lane reducing 32 strided
+elements in place (Reduce.hpp:121-134, kernel at :24-37). Here the whole
+tree is one XLA reduction, which the compiler fuses and tiles for the device
+— no host round trips, no destructive in-place partials.
 
-Differences from the reference (deliberate, TPU-first):
+Differences from the reference (deliberate):
   - not destructive: input is untouched; the result is returned (the
     reference overwrites the buffer and leaves the answer at data[0],
     Reduce.hpp:131-134);
-  - non-power-of-2 sizes handled by identity padding instead of per-lane
-    bounds checks (Reduce.hpp:28);
+  - any N >= 1 with no per-lane bounds checks (Reduce.hpp:28): XLA
+    handles the ragged tail;
   - class form `Reduce(dtype, op)(buffer, count)` preserves the reference's
     call shape, writing the result to buffer[0] as the reference does.
 """
@@ -30,7 +28,6 @@ import numpy as np
 from ..utils.buffers import DeviceBuffer
 from ..utils.dtypes import DataType, check_dtype_supported
 from ..utils.errors import check_argument
-from .backend import resolve_backend
 
 
 class ReduceOperator(enum.Enum):
@@ -51,8 +48,8 @@ _OP_NAMES = {
 
 
 def identity_for(op: ReduceOperator, dtype) -> np.generic:
-    """Identity element used for padding (the reference instead bounds-checks
-    each lane load, Reduce.hpp:28; padding keeps TPU tiles dense)."""
+    """Identity element of `op` for `dtype`: what an empty segment reduces
+    to and what seeds each partition of an exclusive scan."""
     dtype = jnp.dtype(dtype)
     if op == ReduceOperator.SUM:
         return dtype.type(0)
@@ -79,39 +76,9 @@ def combine_fn(op: ReduceOperator):
     }[op]
 
 
-def _reduce_backend(backend) -> str:
-    """Resolve the reduce backend; None/unset on TPU routes to the platform.
-
-    Measured round 5 (proto/reduce_lab2.py, differenced multi-array timing —
-    each reduce standalone, no cross-iteration fusion): the Pallas kernel and
-    the platform reducer are BOTH at the HBM roofline for HBM-resident sizes
-    (743 GB/s each on 2 GB arrays, i.e. ~91% of the v5e's 819 GB/s spec;
-    equal within run-to-run noise at 268 MB), and at small/mid sizes the
-    platform's lower dispatch cost wins. The platform additionally FUSES a
-    reduce into neighboring elementwise passes over the same array — the
-    round-4 VS_XLA chained harness measured exactly that composition
-    (0.74-0.79x against the opaque custom call, which elides one full HBM
-    read) and it is structurally unavailable to any custom kernel. With no
-    size regime where the kernel wins, the router is a constant: platform on
-    TPU. An explicit backend= or GLU_TPU_BACKEND still selects the kernel
-    (the GLSL-parity component, reference Reduce.hpp:11-38; CI drives it in
-    interpret mode and the on-chip suite drives it for real)."""
-    import os
-
-    from .backend import _ENV_BACKEND, is_tpu_backend
-
-    if backend is None and not os.environ.get(_ENV_BACKEND) and is_tpu_backend():
-        return "xla"
-    return resolve_backend(backend)
-
-
-@partial(jax.jit, static_argnames=("op", "backend"))
-def _reduce_impl(x: jax.Array, op: ReduceOperator, backend: str) -> jax.Array:
-    if backend == "pallas":
-        from ._pallas_reduce import pallas_reduce
-
-        return pallas_reduce(x, op)
-    # XLA backend: let the compiler build the reduction tree. The accumulator
+@partial(jax.jit, static_argnames=("op",))
+def _reduce_impl(x: jax.Array, op: ReduceOperator) -> jax.Array:
+    # XLA builds the reduction tree. The accumulator
     # dtype is pinned to the input dtype so u32 sums wrap mod 2^32 exactly
     # like the reference's GLSL uint arithmetic (no silent x64 promotion).
     if op == ReduceOperator.SUM:
@@ -123,23 +90,21 @@ def _reduce_impl(x: jax.Array, op: ReduceOperator, backend: str) -> jax.Array:
     return jnp.max(x, axis=0)
 
 
-def reduce(x: jax.Array, op: ReduceOperator = ReduceOperator.SUM, *, backend: str | None = None) -> jax.Array:
+def reduce(x: jax.Array, op: ReduceOperator = ReduceOperator.SUM) -> jax.Array:
     """Reduce x along axis 0. x: (N,) scalar stream or (N, C) vector stream.
 
-    Any N >= 1 (the reference supports non-power-of-2 via bounds checks; we
-    pad with the operator identity). Returns a scalar (or (C,) for vectors).
+    Any N >= 1 (the reference supports non-power-of-2 via bounds checks).
+    Returns a scalar (or (C,) for vectors).
     """
     check_argument(x.ndim in (1, 2), "reduce expects (N,) or (N, C) input, got shape %s", x.shape)
     check_argument(x.shape[0] >= 1, "reduce requires count >= 1")
-    return _reduce_impl(x, op, _reduce_backend(backend))
+    return _reduce_impl(x, op)
 
 
 def segmented_reduce(
     x: jax.Array,
     offsets,
     op: ReduceOperator = ReduceOperator.SUM,
-    *,
-    backend: str | None = None,
 ) -> jax.Array:
     """Per-segment reduction over VARIABLE-length adjacent segments (CUB
     DeviceSegmentedReduce-style begin/end `offsets`: S+1 nondecreasing
@@ -175,7 +140,7 @@ def segmented_reduce(
         return jnp.where(oi[1:] > oi[:-1], incl[ends], jnp.full((), ident, x.dtype))
     from .scan import inclusive_scan
 
-    incl = inclusive_scan(x, op=op, backend=backend)
+    incl = inclusive_scan(x, op=op)
     # prefix value BEFORE each boundary: 0 at boundary 0, incl[o-1] else
     pref = jnp.where(oi > 0, incl[jnp.maximum(oi - 1, 0)], jnp.zeros((), x.dtype))
     return pref[1:] - pref[:-1]
@@ -196,11 +161,11 @@ class Reduce:
         self.data_type = data_type
         self.operator = operator
 
-    def __call__(self, buffer: DeviceBuffer | jax.Array, count: int, *, backend: str | None = None):
+    def __call__(self, buffer: DeviceBuffer | jax.Array, count: int):
         data = buffer.data if isinstance(buffer, DeviceBuffer) else buffer
         check_argument(count >= 1, "Count must be >= 1")
         check_argument(count <= data.shape[0], "count %d exceeds buffer size %d", count, data.shape[0])
-        result = reduce(data[:count], self.operator, backend=backend)
+        result = reduce(data[:count], self.operator)
         if isinstance(buffer, DeviceBuffer):
             buffer.data = buffer.data.at[0].set(result)
         return result

@@ -1,13 +1,10 @@
 """Blelloch exclusive prefix scan (sum), with batched adjacent partitions.
 
-TPU-native re-design of reference glu/BlellochScan.hpp. The reference runs
+A JAX re-design of reference glu/BlellochScan.hpp. The reference runs
 2*log2(N) host-synchronized dispatches (upsweep then downsweep, one per tree
-level, with a full glMemoryBarrier between each — BlellochScan.hpp:142-190);
-that per-level round trip is why its 1K-element scan costs 1.1 ms
-(README.md:110). On TPU the whole up+down tree collapses into ONE Pallas
-kernel: a sequential grid over VMEM tiles, each tile scanned in-register
-(lane/sublane log-step shifts), with a scalar carry chained across grid steps
-through SMEM — zero host round trips.
+level, with a full glMemoryBarrier between each — BlellochScan.hpp:142-190).
+Here the whole scan is one XLA program (`jnp.cumsum` / `lax.cummin` etc.
+over a partition axis) with no host round trip between tree levels.
 
 The reference's `num_partitions` batch mode (grid-y = partition,
 BlellochScan.hpp:125-138) — really a segmented scan over adjacent
@@ -36,27 +33,21 @@ from ..utils.buffers import DeviceBuffer
 from ..utils.dtypes import DataType, check_dtype_supported
 from ..utils.errors import check_argument
 from ..utils.math import is_power_of_2
-from .backend import resolve_backend
 from .reduce import ReduceOperator, combine_fn, identity_for
 
 
-@partial(jax.jit, static_argnames=("num_partitions", "op", "backend"))
-def _scan_impl(x: jax.Array, num_partitions: int, op: ReduceOperator, backend: str) -> jax.Array:
+@partial(jax.jit, static_argnames=("num_partitions", "op"))
+def _scan_impl(x: jax.Array, num_partitions: int, op: ReduceOperator) -> jax.Array:
     if x.ndim == 2:
-        # vector dtypes: per-component scan over the trailing axis, vmapped
-        # exactly as pallas_reduce vmaps components (_pallas_reduce.py:143-150)
-        # — parity with the reference ctor accepting any DataType
+        # vector dtypes: per-component scan over the trailing axis — parity
+        # with the reference ctor accepting any DataType
         # (BlellochScan.hpp:96-102)
-        per_comp = jax.vmap(lambda col: _scan_flat(col, num_partitions, op, backend))(x.T)
+        per_comp = jax.vmap(lambda col: _scan_flat(col, num_partitions, op))(x.T)
         return per_comp.T
-    return _scan_flat(x, num_partitions, op, backend)
+    return _scan_flat(x, num_partitions, op)
 
 
-def _scan_flat(x: jax.Array, num_partitions: int, op: ReduceOperator, backend: str) -> jax.Array:
-    if backend == "pallas":
-        from ._pallas_scan import pallas_exclusive_scan
-
-        return pallas_exclusive_scan(x, num_partitions, op)
+def _scan_flat(x: jax.Array, num_partitions: int, op: ReduceOperator) -> jax.Array:
     n = x.shape[0]
     seg = x.reshape(num_partitions, n // num_partitions)
     # accumulator dtype pinned to the input dtype so u32 sums/products wrap
@@ -125,14 +116,13 @@ def _flagged_scan(x, flags, op, inclusive: bool):
     return jnp.where(flags, ident[0], shifted)
 
 
-def _segmented_scan_offsets(x, offsets, op, backend, inclusive: bool):
+def _segmented_scan_offsets(x, offsets, op, inclusive: bool):
     """Ragged segmented scan (offsets form). Integer SUM takes the O(n)
     fast path: one GLOBAL scan, then subtract each element's segment-base
-    prefix — built without per-element gathers (XLA:TPU gathers are
-    element-at-a-time): gather the S segment-start prefix values (an
-    S-sized gather — tiny), difference them, scatter the increments at the
-    boundaries, and cumsum back into a step function. Exact in the wrapping
-    integer ring (mod-2^w subtraction inverts mod-2^w addition).
+    prefix: gather the S segment-start prefix values (an S-sized gather),
+    difference them, scatter the increments at the boundaries, and cumsum
+    back into a step function. Exact in the wrapping integer ring (mod-2^w
+    subtraction inverts mod-2^w addition).
 
     Every other (op, dtype) — min/max/mul, and float sums — takes the
     flagged-combine path (_flagged_scan): exact for all of them (no inverse
@@ -149,7 +139,7 @@ def _segmented_scan_offsets(x, offsets, op, backend, inclusive: bool):
     if op != ReduceOperator.SUM or not jnp.issubdtype(x.dtype, jnp.integer):
         flags = _segment_start_flags(offs, n)
         return _flagged_scan(x, flags, op, inclusive)
-    b = _scan_impl(x, 1, op, resolve_backend(backend))  # global exclusive
+    b = _scan_impl(x, 1, op)  # global exclusive
     starts = jnp.minimum(offs[:-1].astype(jnp.int32), n - 1)
     vals = b[starts]  # (S,) scalars — a tiny gather
     incs = jnp.diff(vals, prepend=jnp.zeros((1,), b.dtype).astype(vals.dtype))
@@ -164,7 +154,6 @@ def exclusive_scan(
     num_partitions: int = 1,
     op: ReduceOperator = ReduceOperator.SUM,
     *,
-    backend: str | None = None,
     offsets=None,
 ) -> jax.Array:
     """Exclusive prefix scan of x under `op` (default sum), independently over
@@ -191,8 +180,8 @@ def exclusive_scan(
         check_argument(
             num_partitions in (1, None), "offsets and num_partitions are mutually exclusive"
         )
-        return _segmented_scan_offsets(x, offsets, op, backend, inclusive=False)
-    return _scan_impl(x, num_partitions, op, resolve_backend(backend))
+        return _segmented_scan_offsets(x, offsets, op, inclusive=False)
+    return _scan_impl(x, num_partitions, op)
 
 
 def inclusive_scan(
@@ -200,7 +189,6 @@ def inclusive_scan(
     num_partitions: int = 1,
     op: ReduceOperator = ReduceOperator.SUM,
     *,
-    backend: str | None = None,
     offsets=None,
 ) -> jax.Array:
     """Inclusive prefix scan: `out[i] = op(x[j] for j <= i)` within each
@@ -212,8 +200,8 @@ def inclusive_scan(
         check_argument(
             num_partitions in (1, None), "offsets and num_partitions are mutually exclusive"
         )
-        return _segmented_scan_offsets(x, offsets, op, backend, inclusive=True)
-    exc = _scan_impl(x, num_partitions, op, resolve_backend(backend))
+        return _segmented_scan_offsets(x, offsets, op, inclusive=True)
+    exc = _scan_impl(x, num_partitions, op)
     return combine_fn(op)(exc, x)
 
 
@@ -241,8 +229,6 @@ class BlellochScan:
         buffer: DeviceBuffer | jax.Array,
         count: int,
         num_partitions: int = 1,
-        *,
-        backend: str | None = None,
     ):
         data = buffer.data if isinstance(buffer, DeviceBuffer) else buffer
         check_argument(count >= 1, "Count must be >= 1")
@@ -257,7 +243,7 @@ class BlellochScan:
         check_argument(
             total <= data.shape[0], "count*num_partitions %d exceeds buffer size %d", total, data.shape[0]
         )
-        result = exclusive_scan(data[:total], num_partitions, self.operator, backend=backend)
+        result = exclusive_scan(data[:total], num_partitions, self.operator)
         if isinstance(buffer, DeviceBuffer):
             buffer.data = buffer.data.at[:total].set(result)
             return buffer.data[:total]

@@ -2,8 +2,8 @@
 
 The reference is single-process single-GPU (SURVEY.md §2.3); this layer is
 the new capability required by BASELINE.json's north star: sorting sharded
-key/value arrays across a TPU mesh with sampled-splitter partitioning, a
-single padded all-to-all bucket exchange over ICI, and stable local sorts —
+key/value arrays across a device mesh with sampled-splitter partitioning, a
+single all-to-all bucket exchange, and stable local sorts —
 composed from the same single-chip kernels via `jax.shard_map`. Reduce and
 scan get the same treatment (dist_primitives.py), so every primitive in
 the library has a mesh-scale form.

@@ -44,7 +44,6 @@ def distributed_reduce(
     op: ReduceOperator = ReduceOperator.SUM,
     *,
     axis_name: str = "shards",
-    backend: str | None = None,
 ) -> jax.Array:
     """Reduce a sharded 1-D array to one global scalar (replicated on every
     device). Wrapping u32 sum/mul semantics match the single-chip reduce."""
@@ -54,7 +53,7 @@ def distributed_reduce(
     spec = jax.sharding.PartitionSpec(axis_name)
 
     def body(xs):
-        local = reduce(xs, op, backend=backend)
+        local = reduce(xs, op)
         partials = jax.lax.all_gather(local, axis_name)  # (D,) tiny
         total = partials[0]
         for d in range(1, partials.shape[0]):
@@ -79,7 +78,6 @@ def distributed_exclusive_scan(
     op: ReduceOperator = ReduceOperator.SUM,
     *,
     axis_name: str = "shards",
-    backend: str | None = None,
 ) -> jax.Array:
     """Exclusive prefix scan of a sharded 1-D array under `op`, sharded the
     same way on output: element i receives op-fold of elements [0, i) in
@@ -91,7 +89,7 @@ def distributed_exclusive_scan(
     spec = jax.sharding.PartitionSpec(axis_name)
 
     def body(xs):
-        local_exc = exclusive_scan(xs, 1, op, backend=backend)
+        local_exc = exclusive_scan(xs, 1, op)
         # shard total = op(exclusive[-1], x[-1]) — avoids a second reduction
         local_tot = combine(local_exc[-1], xs[-1])
         totals = jax.lax.all_gather(local_tot, axis_name)  # (D,) tiny
@@ -115,9 +113,8 @@ def distributed_inclusive_scan(
     op: ReduceOperator = ReduceOperator.SUM,
     *,
     axis_name: str = "shards",
-    backend: str | None = None,
 ) -> jax.Array:
     """Inclusive variant: `op(exclusive, x)` elementwise (exact for every
     operator, wrapping arithmetic included)."""
-    exc = distributed_exclusive_scan(x, mesh, op, axis_name=axis_name, backend=backend)
+    exc = distributed_exclusive_scan(x, mesh, op, axis_name=axis_name)
     return combine_fn(op)(exc, x)

@@ -1,6 +1,6 @@
 """Device buffer wrapper.
 
-TPU-native analog of reference glu/gl_utils.hpp:146-246 (ShaderStorageBuffer)
+JAX analog of reference glu/gl_utils.hpp:146-246 (ShaderStorageBuffer)
 and copy_buffer (gl_utils.hpp:13-22). JAX arrays are immutable, so the SSBO's
 mutable realloc/clear/write surface becomes a thin handle that swaps its
 underlying `jax.Array`; operator classes accept either raw arrays (functional
@@ -8,8 +8,8 @@ path, preferred) or DeviceBuffer handles (API-parity path mirroring how the
 reference mutates SSBOs in place).
 
 Where the reference relies on `glBufferStorage` realloc + device-device copy
-to grow scratch (ShaderStorageBuffer::resize, gl_utils.hpp:194-212), the TPU
-analog is pad/slice on device — XLA keeps it on-HBM.
+to grow scratch (ShaderStorageBuffer::resize, gl_utils.hpp:194-212), the JAX
+analog is pad/slice on device — XLA keeps it in device memory.
 """
 
 from __future__ import annotations

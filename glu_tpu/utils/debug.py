@@ -1,6 +1,6 @@
 """Host-side debug printers.
 
-TPU-native analog of reference glu/gl_utils.hpp:304-329 (print_stl_container,
+JAX analog of reference glu/gl_utils.hpp:304-329 (print_stl_container,
 print_buffer, print_buffer_hex): dump any container / device array in decimal
 or hex for eyeballing intermediate state (e.g. a partially-executed sort via
 `num_steps`).

@@ -1,19 +1,17 @@
 """Element type registry.
 
-TPU-native analog of reference glu/data_types.hpp:8-44: the same 12 logical
+JAX analog of reference glu/data_types.hpp:8-44: the same 12 logical
 element types (float/double/int/uint scalars and their vec2/vec4 variants).
 
 Where the reference maps each DataType to a GLSL type name for `#define`
 injection into shader source (to_glsl_type_str, data_types.hpp:24-44), we map
 each DataType to a JAX dtype plus a number of *components*. Vector types are
-represented as arrays with a trailing component axis of size 2 or 4 — the
-natural TPU layout, since the component axis then lives in lanes/sublanes and
-every op vectorizes across it for free.
+represented as arrays with a trailing component axis of size 2 or 4, so every
+op vectorizes across the components.
 
-Doubles: TPU hardware has no f64 ALUs. DataType.DOUBLE / DVEC* are supported
-when the backend supports x64 (CPU with jax_enable_x64, used by the test
-suite); on TPU they are rejected with a clear error rather than silently
-truncated.
+Doubles: DataType.DOUBLE / DVEC* need 64-bit floats, which JAX holds only
+with jax_enable_x64; without it they are rejected with a clear error rather
+than silently truncated to float32.
 """
 
 from __future__ import annotations
@@ -110,7 +108,7 @@ def check_dtype_supported(data_type: DataType) -> DTypeInfo:
     if info.dtype == jnp.float64 and not supports_float64():
         check_argument(
             False,
-            "%s requires 64-bit floats; enable jax_enable_x64 (CPU) — TPU has no f64 ALUs",
+            "%s requires 64-bit floats; enable jax_enable_x64",
             info.name,
         )
     return info

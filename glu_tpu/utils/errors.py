@@ -1,6 +1,6 @@
 """Fail-fast error checks.
 
-TPU-native analog of reference glu/errors.hpp:8-18 (GLU_CHECK_STATE,
+JAX analog of reference glu/errors.hpp:8-18 (GLU_CHECK_STATE,
 GLU_CHECK_ARGUMENT, GLU_FAIL). The reference prints to stderr and exits the
 process; in a Python/JAX host we raise typed exceptions instead, which is the
 idiomatic fail-fast for a library that does not own the process.

@@ -1,6 +1,6 @@
 """Integer math helpers.
 
-TPU-native analog of reference glu/gl_utils.hpp:267-302 (div_ceil,
+JAX analog of reference glu/gl_utils.hpp:267-302 (div_ceil,
 is_power_of_2, next_power_of_2, log32_floor/ceil). Python ints are unbounded
 so the bit-smearing implementation of next_power_of_2 is replaced with
 bit_length arithmetic; semantics match the reference for all uint64 inputs.

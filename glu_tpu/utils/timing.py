@@ -1,11 +1,11 @@
 """Device timing.
 
-TPU-native analog of reference glu/gl_utils.hpp:249-265
+JAX analog of reference glu/gl_utils.hpp:249-265
 (measure_gl_elapsed_time: a GL_TIME_ELAPSED query around a callback) and
-test/util/StopWatch.hpp. On TPU the equivalent is wall-clock around a fully
-synchronized dispatch: block on all inputs, run, block on all outputs
-(`jax.block_until_ready`). For deeper traces, `jax.profiler` is the analog of
-RenderDoc capture and is exposed via `trace()`.
+test/util/StopWatch.hpp: wall-clock around a fully synchronized dispatch,
+ended by `jax.block_until_ready` on every output. For deeper traces,
+`jax.profiler` is the analog of RenderDoc capture and is exposed via
+`trace()`.
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ class StopWatch:
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/glu_tpu_trace"):
+def trace(log_dir: str):
     """jax.profiler trace context — the RenderDoc-capture analog
     (the reference links renderdoc_app.h but never invokes it; we wire the
     equivalent through so it is actually usable)."""

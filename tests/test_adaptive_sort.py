@@ -2,7 +2,7 @@
 
 An extension beyond the reference (which always runs all 8 passes or a
 caller-fixed num_steps, reference glu/RadixSort.hpp:273): constant key bits
-never change relative order under a stable sort, so the engine may process
+never change relative order under a stable sort, so the sort may process
 only the varying bits — ceil(v/4) passes instead of 8 — and the result is
 still the exact stable full sort. `bits="auto"` detects the varying set with
 one device OR/AND reduction; an explicit bit-position sequence generalizes
@@ -46,12 +46,11 @@ def test_varying_key_bits():
 
 
 @pytest.mark.parametrize("size", [100, 4096, 20000])
-def test_auto_low_entropy_equals_full(backend, seeded_rng, size):
+def test_auto_low_entropy_equals_full(seeded_rng, size):
     # %10 keys: only bits 0..3 vary -> a single 4-bit pass
     keys = seeded_rng(size).sample_int_vector(size, 0, 0xFFFFFFFE) % np.uint32(10)
     vals = np.arange(size, dtype=np.uint32)
-    out_k, out_v = radix_sort(
-        jnp.asarray(keys), jnp.asarray(vals), backend=backend, bits="auto"
+    out_k, out_v = radix_sort(jnp.asarray(keys), jnp.asarray(vals), bits="auto"
     )
     order = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(np.asarray(out_k), keys[order])
@@ -62,45 +61,43 @@ def test_auto_low_entropy_equals_full(backend, seeded_rng, size):
     "positions",
     [(0,), (31,), (1, 5, 17, 30, 31), (4, 5, 6, 7, 8, 9, 10, 11, 12), tuple(range(32))],
 )
-def test_explicit_bits_match_masked_oracle(backend, seeded_rng, positions):
+def test_explicit_bits_match_masked_oracle(call_mode, seeded_rng, positions):
     size = 6000
     keys = seeded_rng(size + len(positions)).sample_int_vector(size, 0, 0xFFFFFFFE)
     vals = np.arange(size, dtype=np.uint32)
-    out_k, out_v = radix_sort(
-        jnp.asarray(keys), jnp.asarray(vals), backend=backend, bits=positions
+    out_k, out_v = call_mode(
+        radix_sort, jnp.asarray(keys), jnp.asarray(vals), bits=positions
     )
     order = _masked_order(keys, positions)
     np.testing.assert_array_equal(np.asarray(out_k), keys[order])
     np.testing.assert_array_equal(np.asarray(out_v), order.astype(np.uint32))
 
 
-def test_bit_significance_is_sequence_order(backend):
+def test_bit_significance_is_sequence_order(call_mode):
     # (8, 0): bit 8 is LEAST significant -> order by bit0 first, bit8 breaks ties
     keys = np.array([0x100, 0x000, 0x101, 0x001], np.uint32)
     vals = np.arange(4, dtype=np.uint32)
-    out_k, out_v = radix_sort(
-        jnp.asarray(keys), jnp.asarray(vals), backend=backend, bits=(8, 0)
+    out_k, out_v = call_mode(
+        radix_sort, jnp.asarray(keys), jnp.asarray(vals), bits=(8, 0)
     )
     order = _masked_order(keys, (8, 0))
     np.testing.assert_array_equal(np.asarray(out_k), keys[order])
     np.testing.assert_array_equal(np.asarray(out_v), order.astype(np.uint32))
 
 
-def test_auto_all_equal_is_identity(backend):
+def test_auto_all_equal_is_identity(call_mode):
     keys = np.full(777, 42, np.uint32)
     vals = np.arange(777, dtype=np.uint32)
-    out_k, out_v = radix_sort(
-        jnp.asarray(keys), jnp.asarray(vals), backend=backend, bits="auto"
+    out_k, out_v = radix_sort(jnp.asarray(keys), jnp.asarray(vals), bits="auto"
     )
     np.testing.assert_array_equal(np.asarray(out_k), keys)
     np.testing.assert_array_equal(np.asarray(out_v), vals)
 
 
-def test_auto_descending(backend, seeded_rng):
+def test_auto_descending(seeded_rng):
     keys = seeded_rng(11).sample_int_vector(5000, 0, 99)
     vals = np.arange(5000, dtype=np.uint32)
-    out_k, out_v = radix_sort(
-        jnp.asarray(keys), jnp.asarray(vals), backend=backend,
+    out_k, out_v = radix_sort(jnp.asarray(keys), jnp.asarray(vals),
         bits="auto", descending=True,
     )
     order = np.argsort(~keys, kind="stable")
@@ -108,17 +105,16 @@ def test_auto_descending(backend, seeded_rng):
     np.testing.assert_array_equal(np.asarray(out_v), order.astype(np.uint32))
 
 
-def test_auto_keys_only_and_multi(backend, seeded_rng):
+def test_auto_keys_only_and_multi(seeded_rng):
     # 9 varying, non-contiguous bits -> 3 passes (last pass 1 bit wide)
     mask = np.uint32(0b1011010011010)
     keys = seeded_rng(12).sample_int_vector(8000, 0, 0xFFFFFFFE) & mask
-    out = radix_sort_keys(jnp.asarray(keys), backend=backend, bits="auto")
+    out = radix_sort_keys(jnp.asarray(keys), bits="auto")
     np.testing.assert_array_equal(np.asarray(out), np.sort(keys))
 
     vals = np.arange(8000, dtype=np.uint32)
     out_k, (v1, v2) = radix_sort_multi(
-        jnp.asarray(keys), [jnp.asarray(vals), jnp.asarray(vals * 3)],
-        backend=backend, bits="auto",
+        jnp.asarray(keys), [jnp.asarray(vals), jnp.asarray(vals * 3)], bits="auto"
     )
     order = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(np.asarray(out_k), keys[order])
@@ -126,36 +122,31 @@ def test_auto_keys_only_and_multi(backend, seeded_rng):
     np.testing.assert_array_equal(np.asarray(v2), (order * 3).astype(np.uint32))
 
 
-def test_auto_f32_i32(backend, seeded_rng):
+def test_auto_f32_i32(seeded_rng):
     rng = seeded_rng(13)
     kf = rng.sample_int_vector(3000, 0, 255).astype(np.float32)
-    of, vf = radix_sort_f32(
-        jnp.asarray(kf), jnp.arange(3000, dtype=jnp.uint32),
-        backend=backend, bits="auto",
+    of, vf = radix_sort_f32(jnp.asarray(kf), jnp.arange(3000, dtype=jnp.uint32), bits="auto",
     )
     order = np.argsort(kf, kind="stable")
     np.testing.assert_array_equal(np.asarray(of), kf[order])
     np.testing.assert_array_equal(np.asarray(vf), order.astype(np.uint32))
 
     ki = (rng.sample_int_vector(3000, 0, 199).astype(np.int64) - 100).astype(np.int32)
-    oi, vi = radix_sort_i32(
-        jnp.asarray(ki), jnp.arange(3000, dtype=jnp.uint32),
-        backend=backend, bits="auto",
+    oi, vi = radix_sort_i32(jnp.asarray(ki), jnp.arange(3000, dtype=jnp.uint32), bits="auto",
     )
     order = np.argsort(ki, kind="stable")
     np.testing.assert_array_equal(np.asarray(oi), ki[order])
     np.testing.assert_array_equal(np.asarray(vi), order.astype(np.uint32))
 
 
-def test_auto_u64_parts_per_word(backend, seeded_rng):
+def test_auto_u64_parts_per_word(seeded_rng):
     # hi word spans 3 bits, lo word full range: hi sort prunes to 1 pass
     rng = seeded_rng(14)
     hi = rng.sample_int_vector(4000, 0, 7)
     lo = rng.sample_int_vector(4000, 0, 0xFFFFFFFE)
     vals = np.arange(4000, dtype=np.uint32)
     oh, ol, ov = radix_sort_u64_parts(
-        jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(vals),
-        backend=backend, bits="auto",
+        jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(vals), bits="auto"
     )
     full = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
     order = np.argsort(full, kind="stable")
@@ -179,44 +170,20 @@ def test_bits_rejects_bad_arguments(seeded_rng):
         radix_sort_u64_parts(keys, keys, vals, bits=(0, 1))  # explicit on u64
 
 
-@pytest.fixture
-def tiny_engine_adaptive(monkeypatch):
-    """Shrink the Pallas sort geometry (as tests/test_splicer.py does) so the
-    bit-pruned passes exercise the real multi-block group+splice path at
-    tiny n in interpret mode."""
-    import importlib
-
-    from glu_tpu.ops import _pallas_sort as ps
-
-    rs = importlib.import_module("glu_tpu.ops.radix_sort")
-    monkeypatch.setenv("GLU_TPU_PALLAS_INTERPRET", "1")
-    monkeypatch.setattr(ps, "BLOCK_R", 16)
-    monkeypatch.setattr(ps, "CH_ROWS", 8)
-    monkeypatch.setattr(ps, "_READ_ROWS", 16)
-    rs._radix_sort_streams.clear_cache()
-    yield ps
-    rs._radix_sort_streams.clear_cache()
-
-
-def test_multiblock_adaptive(tiny_engine_adaptive, seeded_rng):
-    """Bit-pruned passes through the REAL multi-block group+splice path
-    (shrunken geometry, interpret mode): partial trailing group (nbits<4)
-    must produce zero counts for the impossible buckets -> empty runs."""
-    size = 6000  # 3 blocks at 16-row geometry
+def test_adaptive_low_bits_and_sparse_positions(seeded_rng):
+    """bits="auto" on keys whose low 6 bits vary (one full 4-bit digit plus
+    a 2-bit remainder), and an explicit sparse 5-position set."""
+    size = 6000
     keys = seeded_rng(16).sample_int_vector(size, 0, 0xFFFFFFFE) & np.uint32(0x3F)
     vals = np.arange(size, dtype=np.uint32)
-    out_k, out_v = radix_sort(
-        jnp.asarray(keys), jnp.asarray(vals), backend="pallas", bits="auto"
-    )
+    out_k, out_v = radix_sort(jnp.asarray(keys), jnp.asarray(vals), bits="auto")
     order = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(np.asarray(out_k), keys[order])
     np.testing.assert_array_equal(np.asarray(out_v), order.astype(np.uint32))
-    # sparse positions with a 1-bit trailing group (5 positions)
     pos = (0, 3, 9, 17, 31)
     keys = seeded_rng(17).sample_int_vector(size, 0, 0xFFFFFFFE)
     out_k, out_v = radix_sort(
-        jnp.asarray(keys), jnp.asarray(np.arange(size, dtype=np.uint32)),
-        backend="pallas", bits=pos,
+        jnp.asarray(keys), jnp.asarray(np.arange(size, dtype=np.uint32)), bits=pos
     )
     order = _masked_order(keys, pos)
     np.testing.assert_array_equal(np.asarray(out_k), keys[order])
@@ -296,15 +263,15 @@ def test_dist_sort_u64_adaptive(seeded_rng):
     np.testing.assert_array_equal(gv, order.astype(np.uint32))
 
 
-def test_u64_parts_explicit_bit_pair(backend, seeded_rng):
+def test_u64_parts_explicit_bit_pair(call_mode, seeded_rng):
     """The trace-safe (hi_positions, lo_positions) form the dist layer uses."""
     rng = seeded_rng(24)
     hi = rng.sample_int_vector(3000, 0, 7)
     lo = rng.sample_int_vector(3000, 0, 0xFFFF)
     vals = np.arange(3000, dtype=np.uint32)
-    oh, ol, ov = radix_sort_u64_parts(
-        jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(vals),
-        backend=backend, bits=((0, 1, 2), tuple(range(16))),
+    oh, ol, ov = call_mode(
+        radix_sort_u64_parts, jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(vals),
+        bits=((0, 1, 2), tuple(range(16))),
     )
     full = (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
     order = np.argsort(full, kind="stable")
@@ -312,29 +279,27 @@ def test_u64_parts_explicit_bit_pair(backend, seeded_rng):
     np.testing.assert_array_equal(np.asarray(ov), order.astype(np.uint32))
 
 
-def test_radix_argsort(backend, seeded_rng):
+def test_radix_argsort(seeded_rng):
     from glu_tpu import radix_argsort
 
     keys = seeded_rng(30).sample_int_vector(5000, 0, 999)
-    ok_, order = radix_argsort(jnp.asarray(keys), backend=backend)
+    ok_, order = radix_argsort(jnp.asarray(keys))
     o = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(np.asarray(order), o.astype(np.uint32))
     np.testing.assert_array_equal(np.asarray(ok_), keys[o])
     # descending + adaptive compose
-    ok_, order = radix_argsort(
-        jnp.asarray(keys), backend=backend, descending=True, bits="auto"
+    ok_, order = radix_argsort(jnp.asarray(keys), descending=True, bits="auto"
     )
     o = np.argsort(~keys, kind="stable")
     np.testing.assert_array_equal(np.asarray(order), o.astype(np.uint32))
 
 
-def test_segmented_adaptive(backend, seeded_rng):
+def test_segmented_adaptive(seeded_rng):
     from glu_tpu import radix_sort_segmented
 
     keys = seeded_rng(31).sample_int_vector(4096, 0, 99)
     vals = np.arange(4096, dtype=np.uint32)
-    out_k, out_v = radix_sort_segmented(
-        jnp.asarray(keys), jnp.asarray(vals), 16, backend=backend, bits="auto"
+    out_k, out_v = radix_sort_segmented(jnp.asarray(keys), jnp.asarray(vals), 16, bits="auto"
     )
     ek, ev = [], []
     for s in range(16):

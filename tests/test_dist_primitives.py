@@ -30,35 +30,35 @@ def _sharded(x, mesh):
 
 
 @pytest.mark.parametrize("opname", list(_OPS))
-def test_dist_reduce(opname, backend, seeded_rng):
+def test_dist_reduce(opname, call_mode, seeded_rng):
     mesh = make_sort_mesh(jax.devices()[:8])
     rng = seeded_rng(20)
     x = rng.sample_int_vector(8 * 4096, 0, 0xFFFFFFFE)
     if opname == "mul":
         x = (x | 1).astype(np.uint32)
     got = np.asarray(
-        distributed_reduce(_sharded(x, mesh), mesh, _OPS[opname], backend=backend)
+        call_mode(distributed_reduce, _sharded(x, mesh), mesh=mesh, op=_OPS[opname])
     )
     assert got == get_oracle().reduce_u32(x, opname)
 
 
 @pytest.mark.parametrize("opname", list(_OPS))
-def test_dist_exclusive_scan(opname, backend, seeded_rng):
+def test_dist_exclusive_scan(opname, call_mode, seeded_rng):
     mesh = make_sort_mesh(jax.devices()[:8])
     rng = seeded_rng(21)
     x = rng.sample_int_vector(8 * 2048, 0, 0xFFFFFFFE)
     got = np.asarray(
-        distributed_exclusive_scan(_sharded(x, mesh), mesh, _OPS[opname], backend=backend)
+        call_mode(distributed_exclusive_scan, _sharded(x, mesh), mesh=mesh, op=_OPS[opname])
     )
     np.testing.assert_array_equal(got, get_oracle().exclusive_scan_op(x, 1, opname))
 
 
-def test_dist_inclusive_scan(backend, seeded_rng):
+def test_dist_inclusive_scan(call_mode, seeded_rng):
     mesh = make_sort_mesh(jax.devices()[:8])
     rng = seeded_rng(22)
     x = rng.sample_int_vector(8 * 1024, 0, 0xFFFFFFFE)
     got = np.asarray(
-        distributed_inclusive_scan(_sharded(x, mesh), mesh, backend=backend)
+        call_mode(distributed_inclusive_scan, _sharded(x, mesh), mesh=mesh)
     )
     np.testing.assert_array_equal(got, np.cumsum(x, dtype=np.uint32))
 

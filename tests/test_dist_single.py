@@ -52,16 +52,16 @@ def test_single_file_ops_match_package(single_module, seeded_rng):
     rng = seeded_rng(1)
     data = rng.sample_int_vector(4096, 0, 1000)
 
-    got_sum = single_module.reduce(jnp.asarray(data), single_module.ReduceOperator.SUM, backend="xla")
+    got_sum = single_module.reduce(jnp.asarray(data), single_module.ReduceOperator.SUM)
     assert np.uint32(np.asarray(got_sum)) == data.sum(dtype=np.uint32)
 
-    got_scan = np.asarray(single_module.exclusive_scan(jnp.asarray(data), backend="xla"))
+    got_scan = np.asarray(single_module.exclusive_scan(jnp.asarray(data)))
     inc = np.cumsum(data, dtype=np.uint32)
     np.testing.assert_array_equal(got_scan, inc - data)
 
     keys = rng.sample_int_vector(5000, 0, 0xFFFFFFFE)
     vals = np.arange(keys.size, dtype=np.uint32)
-    ok, ov = single_module.radix_sort(jnp.asarray(keys), jnp.asarray(vals), backend="xla")
+    ok, ov = single_module.radix_sort(jnp.asarray(keys), jnp.asarray(vals))
     order = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(np.asarray(ok), keys[order])
     np.testing.assert_array_equal(np.asarray(ov), order.astype(np.uint32))
@@ -100,14 +100,14 @@ def test_single_file_ragged_paths_functional(single_module, seeded_rng):
     v = np.arange(n, dtype=np.uint32)
 
     ok, _ = single_module.radix_sort_segmented(
-        jnp.asarray(k), jnp.asarray(v), offsets=jnp.asarray(offs), backend="xla"
+        jnp.asarray(k), jnp.asarray(v), offsets=jnp.asarray(offs)
     )
     for s in range(len(offs) - 1):
         seg = slice(int(offs[s]), int(offs[s + 1]))
         np.testing.assert_array_equal(np.asarray(ok)[seg], np.sort(k[seg], kind="stable"))
 
     got = np.asarray(
-        single_module.exclusive_scan(jnp.asarray(k), offsets=jnp.asarray(offs), backend="xla")
+        single_module.exclusive_scan(jnp.asarray(k), offsets=jnp.asarray(offs))
     )
     exp = np.zeros_like(k)
     for s in range(len(offs) - 1):
@@ -117,7 +117,7 @@ def test_single_file_ragged_paths_functional(single_module, seeded_rng):
     np.testing.assert_array_equal(got, exp)
 
     sums = np.asarray(
-        single_module.segmented_reduce(jnp.asarray(k), jnp.asarray(offs), backend="xla")
+        single_module.segmented_reduce(jnp.asarray(k), jnp.asarray(offs))
     )
     exp_sums = np.array(
         [np.uint32(k[offs[s] : offs[s + 1]].astype(np.uint64).sum() & 0xFFFFFFFF)

@@ -7,6 +7,9 @@ keep buckets balanced for duplicate-heavy keys, and range-correlated inputs
 (pre-sorted/reverse) overflow the padded exchange's per-block capacity and
 recover losslessly through the host-side doubling retry."""
 
+import pathlib
+import sys
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +25,8 @@ from glu_tpu.parallel import (
 )
 from glu_tpu.utils.errors import GluArgumentError
 
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
 
 def _global_result(out_k, out_v, counts, num_devices):
     """Concatenate the real prefix of every shard in device order."""
@@ -35,9 +40,9 @@ def _global_result(out_k, out_v, counts, num_devices):
     return np.concatenate(ks), np.concatenate(vs)
 
 
-def _run(keys: np.ndarray, num_devices=8, backend="xla", **kw):
-    # a platform with fewer devices (the real-TPU suite run has ONE chip)
-    # exercises the same program at the available mesh size
+def _run(keys: np.ndarray, num_devices=8, **kw):
+    # a platform with fewer devices exercises the same program at the
+    # available mesh size
     num_devices = min(num_devices, len(jax.devices()))
     mesh = make_sort_mesh(jax.devices()[:num_devices])
     vals = np.arange(keys.size, dtype=np.uint32)
@@ -45,7 +50,7 @@ def _run(keys: np.ndarray, num_devices=8, backend="xla", **kw):
     sharding = jax.sharding.NamedSharding(mesh, spec)
     k = jax.device_put(jnp.asarray(keys), sharding)
     v = jax.device_put(jnp.asarray(vals), sharding)
-    out_k, out_v, counts, overflow = distributed_radix_sort(k, v, mesh, backend=backend, **kw)
+    out_k, out_v, counts, overflow = distributed_radix_sort(k, v, mesh, **kw)
     assert int(np.asarray(overflow)[0]) == 0, "capacity overflow after retries"
     gk, gv = _global_result(out_k, out_v, np.asarray(counts), num_devices)
     assert gk.size == keys.size
@@ -54,16 +59,19 @@ def _run(keys: np.ndarray, num_devices=8, backend="xla", **kw):
     np.testing.assert_array_equal(gv, order.astype(np.uint32))
 
 
-def test_dist_sort_uniform(seeded_rng):
-    rng = seeded_rng(1)
-    _run(rng.sample_int_vector(8 * 2048, 0, 0xFFFFFFFE))
+@pytest.mark.parametrize("per_device", [2048, 512])
+def test_dist_sort_uniform(per_device, seeded_rng):
+    # 512 per device: fewer elements than the default splitter samples
+    rng = seeded_rng(1 if per_device == 2048 else 6)
+    _run(rng.sample_int_vector(8 * per_device, 0, 0xFFFFFFFE))
 
 
-def test_dist_sort_low_entropy(seeded_rng):
+@pytest.mark.parametrize("max_key", [9, 3])
+def test_dist_sort_low_entropy(max_key, seeded_rng):
     # duplicate-heavy: index-tiebroken splitters must split the tied keys
     # evenly (a key-only splitter collapses all of them onto one device)
-    rng = seeded_rng(2)
-    _run(rng.sample_int_vector(8 * 1024, 0, 9))
+    rng = seeded_rng(2 if max_key == 9 else 7)
+    _run(rng.sample_int_vector(8 * 1024, 0, max_key))
 
 
 def test_dist_sort_constant_keys():
@@ -115,24 +123,9 @@ def test_dist_sort_overflow_reported(seeded_rng):
     sharding = jax.sharding.NamedSharding(mesh, spec)
     out = distributed_radix_sort(
         jax.device_put(keys, sharding), jax.device_put(vals, sharding), mesh,
-        backend="xla", capacity_factor=1.0, max_retries=0,
+        capacity_factor=1.0, max_retries=0,
     )
     assert int(np.asarray(out[3])[0]) == 1
-
-
-def test_dist_sort_pallas_backend(seeded_rng, monkeypatch):
-    # the flagship composition: Pallas kernels under shard_map (interpret
-    # mode on the CPU mesh) — the per-shard local sorts and the compaction
-    # passes all run through the Pallas engine
-    monkeypatch.setenv("GLU_TPU_PALLAS_INTERPRET", "1")
-    rng = seeded_rng(6)
-    _run(rng.sample_int_vector(8 * 512, 0, 0xFFFFFFFE), backend="pallas")
-
-
-def test_dist_sort_pallas_backend_duplicates(seeded_rng, monkeypatch):
-    monkeypatch.setenv("GLU_TPU_PALLAS_INTERPRET", "1")
-    rng = seeded_rng(7)
-    _run(rng.sample_int_vector(8 * 512, 0, 3), backend="pallas")
 
 
 def test_dist_sort_descending(seeded_rng):
@@ -147,7 +140,6 @@ def test_dist_sort_descending(seeded_rng):
         jax.device_put(jnp.asarray(keys), sharding),
         jax.device_put(jnp.asarray(vals), sharding),
         mesh,
-        backend="xla",
         descending=True,
     )
     assert int(np.asarray(overflow)[0]) == 0
@@ -172,7 +164,6 @@ def test_dist_sort_i32(seeded_rng):
         jax.device_put(jnp.asarray(keys), sharding),
         jax.device_put(jnp.asarray(vals), sharding),
         mesh,
-        backend="xla",
     )
     assert int(np.asarray(overflow)[0]) == 0
     gk, gv = _global_result(out_k, out_v, np.asarray(counts), mesh.shape["shards"])
@@ -197,7 +188,6 @@ def test_dist_sort_f32(seeded_rng):
         jax.device_put(jnp.asarray(keys), sharding),
         jax.device_put(jnp.asarray(vals), sharding),
         mesh,
-        backend="xla",
     )
     assert int(np.asarray(overflow)[0]) == 0
     gk, gv = _global_result(out_k, out_v, np.asarray(counts), mesh.shape["shards"])
@@ -210,13 +200,15 @@ def test_dist_sort_f32(seeded_rng):
     np.testing.assert_array_equal(gv, order.astype(np.uint32))
 
 
-def test_dist_sort_u64_parts(seeded_rng):
-    # 64-bit keys as (hi, lo) halves: hi words drawn from a small set so the
-    # lo word must break ties; stability checked via the value permutation
+@pytest.mark.parametrize("hi_max", [3, 0xFFFFFFFF])
+def test_dist_sort_u64_parts(hi_max, seeded_rng):
+    # 64-bit keys as (hi, lo) halves: hi words drawn from a small set make
+    # the lo word break ties; full-range hi words spread over all buckets.
+    # Stability checked via the value permutation
     mesh = make_sort_mesh(jax.devices()[:8])
-    rng = seeded_rng(10)
+    rng = seeded_rng(10 if hi_max == 3 else 12)
     n = 8 * 1024
-    hi = rng.sample_int_vector(n, 0, 3)
+    hi = rng.sample_int_vector(n, 0, hi_max)
     lo = rng.sample_int_vector(n, 0, 0xFFFFFFFF)
     vals = np.arange(n, dtype=np.uint32)
     spec = jax.sharding.PartitionSpec("shards")
@@ -226,7 +218,6 @@ def test_dist_sort_u64_parts(seeded_rng):
         jax.device_put(jnp.asarray(lo), sh),
         jax.device_put(jnp.asarray(vals), sh),
         mesh,
-        backend="xla",
     )
     assert int(np.asarray(overflow)[0]) == 0
     gh, gv = _global_result(oh, ov, np.asarray(counts), mesh.shape["shards"])
@@ -254,7 +245,6 @@ def test_dist_sort_u64_descending(seeded_rng):
         jax.device_put(jnp.asarray(keys), sh),
         jax.device_put(jnp.asarray(vals), sh),
         mesh,
-        backend="xla",
         descending=True,
     )
     assert int(np.asarray(overflow)[0]) == 0
@@ -264,39 +254,10 @@ def test_dist_sort_u64_descending(seeded_rng):
     np.testing.assert_array_equal(gv, order.astype(np.uint32))
 
 
-def test_dist_sort_u64_pallas_backend(seeded_rng, monkeypatch):
-    monkeypatch.setenv("GLU_TPU_PALLAS_INTERPRET", "1")
-    mesh = make_sort_mesh(jax.devices()[:8])
-    rng = seeded_rng(12)
-    n = 8 * 512
-    hi = rng.sample_int_vector(n, 0, 0xFFFFFFFF)
-    lo = rng.sample_int_vector(n, 0, 0xFFFFFFFF)
-    vals = np.arange(n, dtype=np.uint32)
-    spec = jax.sharding.PartitionSpec("shards")
-    sh = jax.sharding.NamedSharding(mesh, spec)
-    oh, ol, ov, counts, overflow = distributed_radix_sort_u64_parts(
-        jax.device_put(jnp.asarray(hi), sh),
-        jax.device_put(jnp.asarray(lo), sh),
-        jax.device_put(jnp.asarray(vals), sh),
-        mesh,
-        backend="pallas",
-    )
-    assert int(np.asarray(overflow)[0]) == 0
-    gh, gv = _global_result(oh, ov, np.asarray(counts), mesh.shape["shards"])
-    gl, _ = _global_result(ol, ov, np.asarray(counts), mesh.shape["shards"])
-    k64 = (hi.astype(np.uint64) << 32) | lo.astype(np.uint64)
-    order = np.argsort(k64, kind="stable")
-    np.testing.assert_array_equal(gh, hi[order])
-    np.testing.assert_array_equal(gl, lo[order])
-    np.testing.assert_array_equal(gv, order.astype(np.uint32))
-
-
-def test_dist_sort_ragged_on_tpu(seeded_rng):
-    # the ragged exchange lowers only on TPU meshes (XLA:CPU lacks
-    # ragged_all_to_all); this executes it whenever the suite runs against
-    # real hardware (GLU_TPU_TEST_PLATFORM=tpu) and skips on the CPU mesh
-    if jax.devices()[0].platform == "cpu":
-        pytest.skip("ragged_all_to_all is not implemented by XLA:CPU")
+@pytest.mark.gpu
+def test_dist_sort_on_gpus(seeded_rng):
+    # the bucket exchange across every local GPU; chip_smoke.py --four runs
+    # the same path at 2^30 pairs
     ndev = len(jax.devices())
     mesh = make_sort_mesh(jax.devices())
     rng = seeded_rng(13)
@@ -307,7 +268,6 @@ def test_dist_sort_ragged_on_tpu(seeded_rng):
         jax.device_put(jnp.asarray(keys), sh),
         jax.device_put(jnp.asarray(vals), sh),
         mesh,
-        exchange="ragged",
     )
     assert int(np.asarray(overflow)[0]) == 0
     gk, gv = _global_result(out_k, out_v, np.asarray(counts), ndev)
@@ -329,9 +289,7 @@ def test_dist_sort_rejects_bad_dtypes():
 
 
 def test_graft_entry_compiles():
-    import sys
-
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, str(ROOT))
     import __graft_entry__ as ge
 
     fn, args = ge.entry()
@@ -339,19 +297,18 @@ def test_graft_entry_compiles():
 
 
 def test_graft_dryrun_multichip():
-    import sys
-
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, str(ROOT))
     import __graft_entry__ as ge
 
     ge.dryrun_multichip(min(8, len(jax.devices())))
 
 
-def test_dist_sort_pipeline_chunks(seeded_rng):
+@pytest.mark.parametrize("chunks,per_device", [(4, 2048), (2, 1024)])
+def test_dist_sort_pipeline_chunks(chunks, per_device, seeded_rng):
     # chunked overlap pipeline (padded path): per-chunk partitions +
     # independent exchanges + (src-major, chunk-minor) compaction
-    rng = seeded_rng(71)
-    _run(rng.sample_int_vector(8 * 2048, 0, 0xFFFFFFFE), pipeline_chunks=4)
+    rng = seeded_rng(71 if chunks == 4 else 79)
+    _run(rng.sample_int_vector(8 * per_device, 0, 0xFFFFFFFE), pipeline_chunks=chunks)
 
 
 def test_dist_sort_pipeline_chunks_skewed(seeded_rng):
@@ -367,13 +324,6 @@ def test_dist_sort_pipeline_chunks_presorted():
     # range-correlated input concentrates whole chunks into single blocks:
     # exercises chunked overflow + retry
     _run(np.arange(8 * 2048, dtype=np.uint32), pipeline_chunks=2)
-
-
-def test_dist_sort_pipeline_chunks_pallas(seeded_rng, monkeypatch):
-    monkeypatch.setenv("GLU_TPU_PALLAS_INTERPRET", "1")
-    rng = seeded_rng(79)
-    _run(rng.sample_int_vector(8 * 1024, 0, 0xFFFFFFFE), backend="pallas",
-         pipeline_chunks=2)
 
 
 def test_dist_sort_pipeline_chunks_u64(seeded_rng):
@@ -419,29 +369,9 @@ def test_dist_sort_pipeline_chunks_bad_divisibility():
 
 
 def test_default_resolvers():
-    """Round-5 shipped defaults: exchange="auto" takes ragged on TPU meshes
-    with D >= 2 and padded elsewhere; pipeline_chunks="auto" takes 2 on
-    D >= 2 when the shard divides (the scaling model's >= 0.80 config,
-    SCALING_MODEL_r05.json)."""
-    from glu_tpu.parallel.dist_sort import _resolve_chunks, _resolve_exchange
-
-    mesh_cpu = make_sort_mesh(jax.devices()[:2])
-    assert _resolve_exchange("auto", mesh_cpu, 2) == "padded"  # CPU mesh
-    assert _resolve_exchange("auto", mesh_cpu, 1) == "padded"
-    assert _resolve_exchange("padded", mesh_cpu, 2) == "padded"
-    assert _resolve_exchange("ragged", mesh_cpu, 2) == "ragged"
-    with pytest.raises(GluArgumentError):
-        _resolve_exchange("bogus", mesh_cpu, 2)
-
-    class _Dev:
-        platform = "tpu"
-        device_kind = "TPU v5 lite"
-
-    class _TpuMesh:
-        devices = np.array([_Dev(), _Dev()])
-
-    assert _resolve_exchange("auto", _TpuMesh(), 2) == "ragged"
-    assert _resolve_exchange("auto", _TpuMesh(), 1) == "padded"
+    """pipeline_chunks="auto" takes 2 on D >= 2 when the shard divides,
+    else 1; explicit values must divide the shard."""
+    from glu_tpu.parallel.dist_sort import _resolve_chunks
 
     assert _resolve_chunks("auto", 2, 4096) == 2
     assert _resolve_chunks("auto", 1, 4096) == 1   # d=1: exact fast path

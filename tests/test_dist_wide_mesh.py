@@ -1,15 +1,15 @@
 """Wide-mesh distributed sort: D > 16 devices.
 
-The bucket partition needs TWO radix passes once device ids exceed 4 bits
-(_num_bucket_steps, dist_sort.py), and the splitter/offset machinery runs
+The bucket partition sorts by more than 4 bucket-id bits once D > 16, and
+the splitter/offset machinery runs
 with 31 splitters — a path the 8-device conftest mesh never executes. The
 device count is fixed per process (XLA_FLAGS at backend init), so this
 runs in a SUBPROCESS with a 32-device CPU mesh.
 
-Since round 5 the default pipeline_chunks="auto" resolves to 2 on D >= 2,
-so the u32 case below ALSO covers the chunked (src-major, chunk-minor)
-compaction at a device count whose bucket ids need 2 radix passes
-(VERDICT r4 #8); the u64 case pins the sequential path explicitly.
+The default pipeline_chunks="auto" resolves to 2 on D >= 2, so the u32
+case below ALSO covers the chunked (src-major, chunk-minor) compaction at a
+device count whose bucket ids need more than 4 bits; the u64 case pins the
+sequential path explicitly.
 """
 
 import json
@@ -44,7 +44,6 @@ assert mesh.shape["shards"] == D, mesh.shape
 sh = jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec("shards"))
 ok, ov, counts, overflow = distributed_radix_sort(
     jax.device_put(jnp.asarray(k), sh), jax.device_put(jnp.asarray(v), sh), mesh,
-    backend="xla",
 )
 assert int(np.asarray(overflow)[0]) == 0
 counts = np.asarray(counts)
@@ -63,7 +62,7 @@ hi = rng.integers(0, 1 << 32, n, dtype=np.uint32)
 lo = rng.integers(0, 1 << 32, n, dtype=np.uint32)
 oh, ol, ov2, counts2, overflow2 = distributed_radix_sort_u64_parts(
     jax.device_put(jnp.asarray(hi), sh), jax.device_put(jnp.asarray(lo), sh),
-    jax.device_put(jnp.asarray(v), sh), mesh, backend="xla", pipeline_chunks=1,
+    jax.device_put(jnp.asarray(v), sh), mesh, pipeline_chunks=1,
 )
 assert int(np.asarray(overflow2)[0]) == 0
 counts2 = np.asarray(counts2)
@@ -84,7 +83,6 @@ def test_dist_sort_32_devices():
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
-    env.pop("GLU_TPU_PALLAS_INTERPRET", None)
     out = subprocess.run(
         [sys.executable, "-c", _SCRIPT % {"repo": repo}],
         capture_output=True,

@@ -24,10 +24,10 @@ def _oracle(x: np.ndarray, op: ReduceOperator) -> np.ndarray:
 
 
 @pytest.mark.parametrize("op", OPS)
-def test_reduce_simple_uint(op, backend):
+def test_reduce_simple_uint(op, call_mode):
     # analog of Reduce-simple-uint (reference test/reduce_tests.cpp:14-52)
     data = np.arange(1, 101, dtype=np.uint32)
-    got = reduce(jnp.asarray(data), op, backend=backend)
+    got = call_mode(reduce, jnp.asarray(data), op=op)
     assert np.asarray(got) == _oracle(data, op)
 
 
@@ -40,7 +40,7 @@ def test_reduce_simple_uint(op, backend):
     ],
 )
 @pytest.mark.parametrize("op", OPS)
-def test_reduce_all_types(data_type, op, backend, seeded_rng):
+def test_reduce_all_types(data_type, op, call_mode, seeded_rng):
     # analog of Reduce-all (reference test/reduce_tests.cpp:54-145), widened
     # to every (dtype, op) pair including negatives for signed types
     from glu_tpu import dtype_info
@@ -56,7 +56,7 @@ def test_reduce_all_types(data_type, op, backend, seeded_rng):
     else:
         host = rng.rng.integers(1, 3, size=shape)
     host = host.astype(np.dtype(info.dtype.name))
-    got = np.asarray(reduce(jnp.asarray(host), op, backend=backend))
+    got = np.asarray(call_mode(reduce, jnp.asarray(host), op=op))
     want = _oracle(host, op)
     if jnp.issubdtype(info.dtype, jnp.floating):
         # float tolerance, as the reference uses WithinAbs (reduce_tests.cpp:72)
@@ -66,48 +66,48 @@ def test_reduce_all_types(data_type, op, backend, seeded_rng):
 
 
 @pytest.mark.parametrize("size", [32, 1024, 4096, 131072])
-def test_reduce_fitting_sizes(size, backend, seeded_rng):
+def test_reduce_fitting_sizes(size, call_mode, seeded_rng):
     # analog of Reduce-subgroup-fitting-size (reference reduce_tests.cpp:147-164)
     rng = seeded_rng(1)
     data = rng.sample_int_vector(size, 0, 100)
-    got = reduce(jnp.asarray(data), ReduceOperator.SUM, backend=backend)
+    got = call_mode(reduce, jnp.asarray(data), op=ReduceOperator.SUM)
     assert np.uint32(np.asarray(got)) == np.sum(data, dtype=np.uint32)
 
 
 @pytest.mark.parametrize("size", [1, 31, 93, 201, 693, 2087, 7358, 88289, 345897])
 @pytest.mark.parametrize("op", OPS)
-def test_reduce_non_fitting_sizes(size, op, backend, seeded_rng):
+def test_reduce_non_fitting_sizes(size, op, call_mode, seeded_rng):
     # analog of Reduce-subgroup-non-fitting-size (reference reduce_tests.cpp:166-183):
     # adversarial non-power-of-2 sizes must not read padding as data
     rng = seeded_rng(size)
     lo = 1 if op == ReduceOperator.MUL else 0
     data = rng.sample_int_vector(size, lo, 1 if op == ReduceOperator.MUL else 1000)
-    got = np.asarray(reduce(jnp.asarray(data), op, backend=backend))
+    got = np.asarray(call_mode(reduce, jnp.asarray(data), op=op))
     assert np.uint32(got) == _oracle(data, op)
 
 
-def test_reduce_sum_wraps_mod_2_32(backend):
+def test_reduce_sum_wraps_mod_2_32(call_mode):
     # u32 sums wrap exactly like GLSL uint arithmetic
     data = np.full(16, 0xF0000000, dtype=np.uint32)
-    got = reduce(jnp.asarray(data), ReduceOperator.SUM, backend=backend)
+    got = call_mode(reduce, jnp.asarray(data), op=ReduceOperator.SUM)
     assert np.uint32(np.asarray(got)) == np.uint32((16 * 0xF0000000) % (1 << 32))
 
 
-def test_reduce_class_writes_index_0(backend):
+def test_reduce_class_writes_index_0():
     # class form leaves the result at buffer[0] (reference Reduce.hpp:131-134)
     buf = DeviceBuffer(np.arange(1, 11, dtype=np.uint32))
     op = Reduce(DataType.UINT, ReduceOperator.SUM)
-    result = op(buf, 10, backend=backend)
+    result = op(buf, 10)
     assert int(result) == 55
     assert buf.get_data()[0] == 55
 
 
-def test_reduce_count_subset(backend):
+def test_reduce_count_subset():
     # reducing only the first `count` elements, as the reference's
     # operator()(buffer, count) does
     buf = DeviceBuffer(np.arange(1, 11, dtype=np.uint32))
     op = Reduce(DataType.UINT, ReduceOperator.SUM)
-    assert int(op(buf, 4, backend=backend)) == 10
+    assert int(op(buf, 4)) == 10
 
 
 def _segred_oracle(data, offs):
@@ -118,7 +118,7 @@ def _segred_oracle(data, offs):
     )
 
 
-def test_segmented_reduce(backend, seeded_rng):
+def test_segmented_reduce(call_mode, seeded_rng):
     from glu_tpu import segmented_reduce
 
     rng = seeded_rng(73)
@@ -126,13 +126,13 @@ def test_segmented_reduce(backend, seeded_rng):
     offs = np.array([0, 0, 5, 5, 700, 701, 2999, 3000, 3000], np.int32)
     data = rng.sample_int_vector(n, 0, 2**32 - 1)
     out = np.asarray(
-        segmented_reduce(jnp.asarray(data), jnp.asarray(offs), backend=backend)
+        call_mode(segmented_reduce, jnp.asarray(data), jnp.asarray(offs))
     )
     np.testing.assert_array_equal(out, _segred_oracle(data, offs))
 
 
 @pytest.mark.parametrize("trial", range(4))
-def test_segmented_reduce_fuzz(trial, backend, seeded_rng):
+def test_segmented_reduce_fuzz(trial, call_mode, seeded_rng):
     from glu_tpu import segmented_reduce
 
     rng = seeded_rng(800 + trial)
@@ -142,21 +142,21 @@ def test_segmented_reduce_fuzz(trial, backend, seeded_rng):
     offs = np.concatenate([[0], cuts, [n]]).astype(np.int32)
     data = rng.sample_int_vector(n, 0, 2**32 - 1)
     out = np.asarray(
-        segmented_reduce(jnp.asarray(data), jnp.asarray(offs), backend=backend)
+        call_mode(segmented_reduce, jnp.asarray(data), jnp.asarray(offs))
     )
     np.testing.assert_array_equal(out, _segred_oracle(data, offs))
 
 
-def test_segmented_reduce_contract(backend):
+def test_segmented_reduce_contract(call_mode):
     from glu_tpu import ReduceOperator, segmented_reduce
     from glu_tpu.utils.errors import GluArgumentError
 
     x = jnp.arange(10, dtype=jnp.uint32)
     with pytest.raises(GluArgumentError):  # bad bounds
-        segmented_reduce(x, jnp.array([0, 9], jnp.int32), backend=backend)
+        call_mode(segmented_reduce, x, offsets=jnp.array([0, 9], jnp.int32))
     with pytest.raises(GluArgumentError):  # 2-D input
-        segmented_reduce(
-            jnp.ones((8, 2), jnp.uint32), jnp.array([0, 8], jnp.int32), backend=backend
+        call_mode(
+            segmented_reduce, jnp.ones((8, 2), jnp.uint32), offsets=jnp.array([0, 8], jnp.int32)
         )
 
 
@@ -168,9 +168,9 @@ def test_segmented_reduce_contract(backend):
     ],
 )
 @pytest.mark.parametrize("dtype", [np.uint32, np.int32, np.float32])
-def test_segmented_reduce_all_ops(op, acc, dtype, backend, seeded_rng):
-    """Round-5: segmented_reduce under ALL FOUR operators and float dtypes
-    (VERDICT r4 #5); empty segments reduce to the operator identity."""
+def test_segmented_reduce_all_ops(op, acc, dtype, call_mode, seeded_rng):
+    """segmented_reduce under ALL FOUR operators and float dtypes; empty
+    segments reduce to the operator identity."""
     from glu_tpu import segmented_reduce
     from glu_tpu.ops.reduce import identity_for
 
@@ -185,7 +185,7 @@ def test_segmented_reduce_all_ops(op, acc, dtype, backend, seeded_rng):
     cuts = np.sort(rng.rng.integers(0, n + 1, size=9))
     offs = np.concatenate([[0], cuts, [n]]).astype(np.int32)
     got = np.asarray(
-        segmented_reduce(jnp.asarray(data), jnp.asarray(offs), op, backend=backend)
+        call_mode(segmented_reduce, jnp.asarray(data), jnp.asarray(offs), op=op)
     )
     ident = identity_for(op, dtype)
     want = np.array(
